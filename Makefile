@@ -1,22 +1,21 @@
-# Native host-side runtime (sypha_tpu.native loads this with ctypes and
-# falls back to numpy implementations when the library is absent).
-# The reference's counterpart is its whole nvcc Makefile; here only the
-# host-side pieces are native — the compute path is JAX/XLA/Pallas.
+# Native host-side runtime (sypha.native loads it with ctypes and falls back
+# to numpy implementations when the library is absent).  The file name is
+# keyed by the source digest, the compiler flags and the host CPU model
+# (sypha.native.library_path), so `make` and the lazy build on first use
+# produce and load the same file.  The compute path is JAX/XLA.
 
-CXX ?= g++
-CXXFLAGS ?= -O3 -march=native -std=c++17 -fPIC -Wall -Wextra
-
-LIB := sypha_tpu/libsypha_host.so
+PYTHON ?= python
+LIB := $(shell $(PYTHON) -m sypha.native)
 
 all: $(LIB)
 
-$(LIB): csrc/sypha_host.cpp
-	$(CXX) $(CXXFLAGS) -shared -o $@ $<
+$(LIB): csrc/sypha_host.cpp sypha/native.py
+	$(PYTHON) -m sypha.native --build
 
 test: $(LIB)
-	python -m pytest tests/ -q
+	$(PYTHON) -m pytest tests/ -q
 
 clean:
-	rm -f $(LIB)
+	rm -f sypha/libsypha_host-*.so
 
 .PHONY: all test clean

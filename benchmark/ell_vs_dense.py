@@ -39,9 +39,9 @@ def main():
     import numpy as np
     import jax
 
-    from sypha_tpu import pad_lp, read_scp_file
-    from sypha_tpu.config import IpmOptions
-    from sypha_tpu.ipm.shared import (
+    from sypha import pad_lp, read_scp_file
+    from sypha.config import IpmOptions
+    from sypha.ipm.shared import (
         make_shared_batch,
         make_shared_batch_sparse,
         mehrotra_solve_shared,

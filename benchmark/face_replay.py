@@ -4,8 +4,8 @@ Usage:
     python benchmark/face_replay.py FACE.npz [--budget B] [--deadline S]
         [--no-duals]
 
-Faces are produced by setting SYPHA_TPU_DUMP_FACES=dir during a MILP run
-(sypha_tpu/native.py exact_cover hook).  This harness exists to tune the
+Faces are produced by setting SYPHA_DUMP_FACES=dir during a MILP run
+(sypha/native.py exact_cover hook).  This harness exists to tune the
 sypha_exact_cover engine (csrc/sypha_host.cpp) offline: each probe of a
 plateau face can be re-run in isolation, with modified budgets, while the
 engine is being modified — no 120 s MILP re-run per data point.
@@ -20,7 +20,7 @@ import time
 import numpy as np
 
 sys.path.insert(0, ".")
-from sypha_tpu import native  # noqa: E402
+from sypha import native  # noqa: E402
 
 
 def replay(path: str, budget=None, deadline=None, use_duals=True, lib_path=None,

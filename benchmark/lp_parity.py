@@ -50,10 +50,10 @@ def main():
     )
     args = ap.parse_args()
 
-    from sypha_tpu import pad_lp, read_scp_file, solve_lp
-    from sypha_tpu.config import IpmOptions
-    from sypha_tpu.core.status import IpmStatus
-    from sypha_tpu.testing import GOLDEN_LP
+    from sypha import pad_lp, read_scp_file, solve_lp
+    from sypha.config import IpmOptions
+    from sypha.core.status import IpmStatus
+    from sypha.testing import GOLDEN_LP
 
     from benchmark.run_benchmark import FAMILIES
 
@@ -124,7 +124,7 @@ def main():
         if args.csv_dir and rows:
             os.makedirs(args.csv_dir, exist_ok=True)
             out = os.path.join(
-                args.csv_dir, f"{fam.strip()}_sypha_tpu_lp_results.csv"
+                args.csv_dir, f"{fam.strip()}_sypha_lp_results.csv"
             )
             with open(out, "w", newline="") as f:
                 w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))

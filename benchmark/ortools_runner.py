@@ -31,7 +31,7 @@ from typing import Dict, Optional
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from sypha_tpu.io.scp_reader import read_scp_file  # noqa: E402
+from sypha.io.scp_reader import read_scp_file  # noqa: E402
 
 CSV_COLUMNS = [
     "instance",

@@ -22,12 +22,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from sypha_tpu import read_scp_file
-from sypha_tpu.config import SolverConfig
-from sypha_tpu.milp.base_model import BaseModel, BranchNode
-from sypha_tpu.milp.bnb import _NodeLpSolver
-from sypha_tpu.milp.cuts import separate_cuts
-from sypha_tpu.utils.logging import Logger
+from sypha import read_scp_file
+from sypha.config import SolverConfig
+from sypha.milp.base_model import BaseModel, BranchNode
+from sypha.milp.bnb import _NodeLpSolver
+from sypha.milp.cuts import separate_cuts
+from sypha.utils.logging import Logger
 
 
 def main() -> None:
@@ -90,7 +90,7 @@ def main() -> None:
             break
         t1 = time.monotonic()
         if args.separators == "zerohalf":
-            from sypha_tpu.milp.cuts import zero_half_mod2
+            from sypha.milp.cuts import zero_half_mod2
 
             cuts = zero_half_mod2(
                 base, res["x"], res["y"], 1e-6, max_cuts=args.max_cuts

@@ -1,11 +1,11 @@
-// sypha_host — native host-side runtime for sypha_tpu.
+// sypha_host — native host-side runtime for sypha.
 //
 // The reference implements its entire host runtime in C++ (model reader
 // src/model_reader.cpp, presolve rules src/sypha_preprocessor.cpp, greedy
-// cover :11-98); this library is the TPU build's native counterpart for the
+// cover :11-98); this library is this package's native counterpart for the
 // pieces that are hot on the host: SCP file parsing and the O(n^2)-O(n^3)
 // column-elimination loops over bitset row masks.  The Python layer
-// (sypha_tpu.native) loads it with ctypes and falls back to the vectorised
+// (sypha.native) loads it with ctypes and falls back to the vectorised
 // numpy implementations when the library is unavailable.
 //
 // ABI: plain C, flat arrays.  Bitsets are [ncols x nwords] uint64 row masks

@@ -12,8 +12,8 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from sypha_tpu import read_scp_file
-from sypha_tpu.api import ResultStatus, Solver
+from sypha import read_scp_file
+from sypha.api import ResultStatus, Solver
 
 
 def main(argv):

@@ -4,7 +4,7 @@ acceptance demo examples/scp_solver.cpp)."""
 import numpy as np
 import pytest
 
-from sypha_tpu.api import ResultStatus, Solver
+from sypha.api import ResultStatus, Solver
 
 
 def _build_scp(solver, costs, rows, integer=True):
@@ -138,7 +138,7 @@ def test_infeasible_lp():
 def test_api_on_scp41(data_dir):
     """The reference's acceptance demo (examples/scp_solver.cpp) end-to-end:
     parse scp41, build via the API, solve the LP relaxation (golden 429)."""
-    from sypha_tpu import read_scp_file
+    from sypha import read_scp_file
 
     m = read_scp_file(str(data_dir / "scp41.txt"))
     s = Solver("scp41")

@@ -10,7 +10,7 @@ masquerading as an unpublished peer.
 import numpy as np
 import pytest
 
-from sypha_tpu.parallel.distributed import BoundPool, PooledBounds
+from sypha.parallel.distributed import BoundPool, PooledBounds
 
 
 def test_encode_accepts_numpy_scalars():

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from sypha_tpu.config import BnbOptions, SolverConfig
-from sypha_tpu.core.status import MilpStatus
-from sypha_tpu.io.scp_reader import read_scp_file
-from sypha_tpu.milp.bnb import branch_and_bound
+from sypha.config import BnbOptions, SolverConfig
+from sypha.core.status import MilpStatus
+from sypha.io.scp_reader import read_scp_file
+from sypha.milp.bnb import branch_and_bound
 
 
 def test_checkpoint_resume(tmp_path, data_dir):
@@ -34,7 +34,7 @@ def test_checkpoint_resume(tmp_path, data_dir):
 
 
 def test_memory_stats_graceful():
-    from sypha_tpu.utils.telemetry import MemorySampler, device_memory_stats
+    from sypha.utils.telemetry import MemorySampler, device_memory_stats
 
     # CPU backend exposes no memory stats: must return None, not raise
     stats = device_memory_stats()

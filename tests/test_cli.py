@@ -5,7 +5,7 @@ import sys
 
 import pytest
 
-from sypha_tpu.cli import build_parser, config_from_args
+from sypha.cli import build_parser, config_from_args
 
 REFERENCE_FLAGS = [
     # src/sypha_environment.cpp:111-149 (sans --help, added by argparse)
@@ -66,7 +66,7 @@ def test_cli_lp_solve_end_to_end(tmp_path, data_dir):
     import io
     from contextlib import redirect_stdout
 
-    from sypha_tpu.cli import main
+    from sypha.cli import main
 
     tiny = tmp_path / "tiny.txt"
     tiny.write_text("3 4\n2 3 4 5\n2 1 2\n2 2 3\n3 1 3 4\n")
@@ -94,7 +94,7 @@ def test_cli_milp_solve_end_to_end(tmp_path):
     import io
     from contextlib import redirect_stdout
 
-    from sypha_tpu.cli import main
+    from sypha.cli import main
 
     tiny = tmp_path / "tiny.txt"
     tiny.write_text("3 4\n2 3 4 5\n2 1 2\n2 2 3\n3 1 3 4\n")
@@ -116,6 +116,6 @@ def test_cli_milp_solve_end_to_end(tmp_path):
 
 
 def test_cli_missing_input_file():
-    from sypha_tpu.cli import main
+    from sypha.cli import main
 
     assert main(["--model", "SCP"]) == -1

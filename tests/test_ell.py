@@ -5,15 +5,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sypha_tpu import pad_lp, read_scp_file
-from sypha_tpu.config import IpmOptions
-from sypha_tpu.core.status import IpmStatus
-from sypha_tpu.ipm.shared import (
+from sypha import pad_lp, read_scp_file
+from sypha.config import IpmOptions
+from sypha.core.status import IpmStatus
+from sypha.ipm.shared import (
     make_shared_batch,
     make_shared_batch_sparse,
     mehrotra_solve_shared,
 )
-from sypha_tpu.ops.ell import EllMatrix, ell_from_dense, ell_from_rows
+from sypha.ops.ell import EllMatrix, ell_from_dense, ell_from_rows
 
 
 def test_ell_products_match_dense():
@@ -37,7 +37,7 @@ def test_ell_products_match_dense():
 def test_ell_from_rows_matches_standard_form(data_dir):
     """ell_from_rows must produce exactly the padded [A0 | -I] the dense
     path builds for the same instance."""
-    from sypha_tpu.io.standard_form import scp_standard_form, pad_standard_form
+    from sypha.io.standard_form import scp_standard_form, pad_standard_form
 
     m = read_scp_file(str(data_dir / "scp_demo_tiny00.txt"))
     A, b, c = scp_standard_form(m)
@@ -111,7 +111,7 @@ def test_sparse_golden_lp_scpnre1(data_dir):
     """scpnre1 (500x5000, the large family) LP to 1e-8 on the sparse
     operator must hit the golden value (reference
     python/sypha_unit_tests.py:47-53: 21.3794)."""
-    from sypha_tpu.testing import ACCEPT_TOL, GOLDEN_LP
+    from sypha.testing import ACCEPT_TOL, GOLDEN_LP
 
     model = read_scp_file(str(data_dir / "scpnre1.txt"))
     sp = make_shared_batch_sparse(model, 1)
@@ -129,7 +129,7 @@ import pytest
 def test_sparse_golden_lp_large_families(family, data_dir):
     """Full nre-nrh LP suite on the SPARSE operator path (VERDICT r1 item
     5 'done' criterion), golden values at 1e-4."""
-    from sypha_tpu.testing import ACCEPT_TOL, GOLDEN_LP
+    from sypha.testing import ACCEPT_TOL, GOLDEN_LP
 
     names = [f"{family}{i}" for i in range(1, 6)]
     models = [read_scp_file(str(data_dir / f"{n}.txt")) for n in names]
@@ -156,8 +156,8 @@ def test_sparse_golden_lp_large_families(family, data_dir):
 
 def test_auto_operator_selection(data_dir):
     """Density-based auto-selection: dense operator for ~10%-dense scpnre,
-    sparse for low-density instances (measured crossover ~5% on v5e)."""
-    from sypha_tpu.ipm.shared import make_shared_batch_auto
+    sparse for low-density instances (crossover ~5% density)."""
+    from sypha.ipm.shared import make_shared_batch_auto
 
     dense_b = make_shared_batch_auto(read_scp_file(str(data_dir / "scpnre1.txt")), 1)
     assert not dense_b.is_sparse
@@ -169,7 +169,7 @@ def test_ell_column_slabs_products():
     """k-way column slabs must reproduce the full operator: stacked-local
     Av partial products sum to the full Av; per-slab ATu equals the
     corresponding slice of the full ATu (shard-local row-ELL indices)."""
-    from sypha_tpu.ops.ell import ell_column_slabs
+    from sypha.ops.ell import ell_column_slabs
 
     rng = np.random.RandomState(7)
     A = rng.rand(24, 40)
@@ -209,10 +209,10 @@ def test_node_solver_ell_parity_scp41(data_dir):
     """The production node solver on the padded-ELL operator returns the
     same root LP as the dense operator (VERDICT r2 item 3: production ELL
     wiring)."""
-    from sypha_tpu.config import SolverConfig
-    from sypha_tpu.milp.base_model import BaseModel, BranchNode
-    from sypha_tpu.milp.bnb import _NodeLpSolver
-    from sypha_tpu.utils.logging import Logger
+    from sypha.config import SolverConfig
+    from sypha.milp.base_model import BaseModel, BranchNode
+    from sypha.milp.bnb import _NodeLpSolver
+    from sypha.utils.logging import Logger
 
     model = read_scp_file(str(data_dir / "scp41.txt"))
     base = BaseModel(model)
@@ -235,10 +235,10 @@ def test_bnb_ell_operator_matches_scipy():
     """Full B&B on the sparse node operator proves the same optimum as
     scipy's MILP on random instances (branch fixings + cuts ride the
     EllMatrix path end to end)."""
-    from sypha_tpu.config import SolverConfig
-    from sypha_tpu.core.problem import ScpModel
-    from sypha_tpu.core.status import MilpStatus
-    from sypha_tpu.milp.bnb import branch_and_bound
+    from sypha.config import SolverConfig
+    from sypha.core.problem import ScpModel
+    from sypha.core.status import MilpStatus
+    from sypha.milp.bnb import branch_and_bound
     from tests.test_milp import scipy_milp_optimum
 
     rng = np.random.default_rng(11)

@@ -5,17 +5,17 @@ batch, matching the reference's end-to-end test strategy (SURVEY §4.1)."""
 import numpy as np
 import pytest
 
-from sypha_tpu.testing import ACCEPT_TOL, GOLDEN_LP
+from sypha.testing import ACCEPT_TOL, GOLDEN_LP
 
 
 def _solve_family(names, data_dir, lanes=1):
     import jax
     import jax.numpy as jnp
 
-    from sypha_tpu import pad_lp, read_scp_file
-    from sypha_tpu.config import IpmOptions
-    from sypha_tpu.core.status import IpmStatus
-    from sypha_tpu.ipm.shared import make_shared_batch, mehrotra_solve_shared
+    from sypha import pad_lp, read_scp_file
+    from sypha.config import IpmOptions
+    from sypha.core.status import IpmStatus
+    from sypha.ipm.shared import make_shared_batch, mehrotra_solve_shared
 
     models = [read_scp_file(str(data_dir / f"{n}.txt")) for n in names]
     mp = max(m.nrows for m in models)
@@ -38,7 +38,7 @@ def _solve_family(names, data_dir, lanes=1):
 def test_golden_lp_family(family, data_dir):
     names = [f"{family}{i}" for i in range(1, 10)] + [f"{family}10"]
     pobj, dobj, status = _solve_family(names, data_dir)
-    from sypha_tpu.core.status import IpmStatus
+    from sypha.core.status import IpmStatus
 
     for i, n in enumerate(names):
         golden = GOLDEN_LP[n]
@@ -52,7 +52,7 @@ def test_golden_lp_family(family, data_dir):
 def test_golden_lp_large_family(family, data_dir):
     names = [f"{family}{i}" for i in range(1, 6)]
     pobj, dobj, status = _solve_family(names, data_dir)
-    from sypha_tpu.core.status import IpmStatus
+    from sypha.core.status import IpmStatus
 
     for i, n in enumerate(names):
         golden = GOLDEN_LP[n]

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import scipy.optimize
 
-from sypha_tpu import (
+from sypha import (
     IpmOptions,
     IpmStatus,
     pad_lp,
@@ -19,7 +19,7 @@ from sypha_tpu import (
     solve_lp_batch,
     stack_lps,
 )
-from sypha_tpu.io.standard_form import pad_standard_form
+from sypha.io.standard_form import pad_standard_form
 
 
 TINY = """3 4

@@ -6,16 +6,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sypha_tpu import pad_lp, read_scp_file
-from sypha_tpu.config import IpmOptions
-from sypha_tpu.core.status import IpmStatus
-from sypha_tpu.ipm.shared import (
+from sypha import pad_lp, read_scp_file
+from sypha.config import IpmOptions
+from sypha.core.status import IpmStatus
+from sypha.ipm.shared import (
     SharedLpBatch,
     fix_columns,
     make_shared_batch,
     mehrotra_solve_shared,
 )
-from sypha_tpu.io.scp_reader import parse_scp_text
+from sypha.io.scp_reader import parse_scp_text
 
 TINY = "3 4\n2 3 4 5\n2 1 2\n2 2 3\n3 1 3 4\n"
 
@@ -157,3 +157,21 @@ def test_chunked_resume_matches_one_shot(data_dir):
     np.testing.assert_allclose(
         np.asarray(st.x), np.asarray(one_shot.x), atol=1e-10
     )
+
+
+def test_shared_gram_matches_float64():
+    """The f32 Gram A diag(w) A^T agrees with float64 to 1e-5 relative.
+    True f32 matmuls give ~1e-7; a reduced-precision (TF32) GEMM would miss
+    the bound by two orders of magnitude."""
+    from sypha.io.generate import random_scp
+    from sypha.ipm.shared import shared_gram
+
+    m = random_scp(40, 256, 0.05, seed=3)
+    A = pad_lp(m, m_pad=40, n_pad=384).A
+    rng = np.random.default_rng(0)
+    d2 = 10.0 ** rng.uniform(-3, 3, size=(3, A.shape[1]))
+    M = np.asarray(shared_gram(jnp.asarray(A, jnp.float32), jnp.asarray(d2), jnp.float32))
+    A64 = np.asarray(A, np.float64)
+    ref = np.einsum("ik,bk,jk->bij", A64, d2, A64)
+    assert M.dtype == np.float32
+    assert np.abs(M - ref).max() / np.abs(ref).max() <= 1e-5

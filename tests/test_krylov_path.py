@@ -6,11 +6,11 @@ dense-factor strategy."""
 import numpy as np
 import jax
 
-from sypha_tpu import pad_lp, read_scp_file, solve_lp
-from sypha_tpu.config import IpmOptions
-from sypha_tpu.core.status import IpmStatus
-from sypha_tpu.ipm.shared import make_shared_batch, mehrotra_solve_shared
-from sypha_tpu.io.scp_reader import parse_scp_text
+from sypha import pad_lp, read_scp_file, solve_lp
+from sypha.config import IpmOptions
+from sypha.core.status import IpmStatus
+from sypha.ipm.shared import make_shared_batch, mehrotra_solve_shared
+from sypha.io.scp_reader import parse_scp_text
 
 TINY = "3 4\n2 3 4 5\n2 1 2\n2 2 3\n3 1 3 4\n"
 
@@ -58,7 +58,7 @@ def test_cg_path_failure_keeps_best_iterate(data_dir):
 
 
 def test_auto_strategy_resolution():
-    from sypha_tpu.ipm.shared import use_cg_strategy
+    from sypha.ipm.shared import use_cg_strategy
 
     assert not use_cg_strategy(IpmOptions(linear_solver="auto"), 512)
     assert use_cg_strategy(IpmOptions(linear_solver="auto"), 4096)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sypha_tpu.ops.linalg import chol_inverse, spd_solve_with_inv
+from sypha.ops.linalg import chol_inverse, spd_solve_with_inv
 
 
 def _random_spd(rng, B, m, cond_scale=1.0):

@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from sypha_tpu import native
-from sypha_tpu.core.problem import ScpModel
-from sypha_tpu.milp.base_model import BaseModel
-from sypha_tpu.milp import presolve
+from sypha import native
+from sypha.core.problem import ScpModel
+from sypha.milp.base_model import BaseModel
+from sypha.milp import presolve
 
 
 @pytest.fixture(scope="module")
@@ -19,7 +19,7 @@ def lib_available():
 
 
 def _fresh_models(data_dir, name="scp41"):
-    from sypha_tpu.io.scp_reader import read_scp_file
+    from sypha.io.scp_reader import read_scp_file
 
     m = read_scp_file(str(data_dir / f"{name}.txt"))
     return BaseModel(m), BaseModel(m)
@@ -42,7 +42,7 @@ def _python_only():
 
 
 def test_native_reader_matches_python(lib_available, data_dir):
-    from sypha_tpu.io.scp_reader import parse_scp_text, read_scp_file
+    from sypha.io.scp_reader import parse_scp_text, read_scp_file
 
     path = str(data_dir / "scp41.txt")
     m_native = read_scp_file(path)
@@ -99,7 +99,7 @@ def test_native_exact_cover_stress_vs_python_oracle(lib_available):
     exact optimum boundary, with LP duals armed and columns masked."""
     from scipy.optimize import linprog
 
-    from sypha_tpu.milp.presolve import exact_small_cover
+    from sypha.milp.presolve import exact_small_cover
 
     rng = np.random.default_rng(77)
     for trial in range(6):
@@ -152,3 +152,28 @@ def test_native_exact_cover_stress_vs_python_oracle(lib_available):
                 assert base.is_cover(xs)
                 assert float(base.costs @ (xs > 0.5)) <= budget + 1e-6
                 assert not np.any(xs[masked] > 0.5)
+
+
+@pytest.mark.parametrize("change", ["source", "flags", "cpu"])
+def test_library_key_changes_with_inputs(change):
+    """The build's file name is keyed by the source digest, the compiler
+    flags and the host CPU model, so a library built from another source,
+    with other flags or on another machine is never loaded."""
+    src, flags, cpu = b"int f() { return 1; }", ("g++", "-O3"), "cpu A"
+    key = native.library_key(src, flags, cpu)
+    assert key == native.library_key(src, flags, cpu)
+    other = {
+        "source": (src + b"\n", flags, cpu),
+        "flags": (src, ("g++", "-O2"), cpu),
+        "cpu": (src, flags, "cpu B"),
+    }[change]
+    assert native.library_key(*other) != key
+
+
+def test_library_path_is_keyed_by_current_source(monkeypatch):
+    monkeypatch.delenv("SYPHA_NATIVE_LIB", raising=False)
+    with open(native._SRC, "rb") as f:
+        key = native.library_key(f.read())
+    path = native.library_path()
+    assert os.path.basename(path) == f"libsypha_host-{key}.so"
+    assert os.path.dirname(path) == os.path.dirname(native.__file__)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from sypha_tpu.io.orlib import orlib_to_model, parse_scp_file
-from sypha_tpu.io.scp_reader import read_scp_file
+from sypha.io.orlib import orlib_to_model, parse_scp_file
+from sypha.io.scp_reader import read_scp_file
 
 
 def test_orlib_roundtrip(data_dir):

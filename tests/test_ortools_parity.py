@@ -51,9 +51,9 @@ def test_ortools_lp_parity_large(family, data_dir):
 def _run_family(family, data_dir):
     import jax
 
-    from sypha_tpu import pad_lp, read_scp_file, solve_lp
-    from sypha_tpu.config import IpmOptions
-    from sypha_tpu.core.status import IpmStatus
+    from sypha import pad_lp, read_scp_file, solve_lp
+    from sypha.config import IpmOptions
+    from sypha.core.status import IpmStatus
 
     table = _ortools_lp_table()
     checked = 0

@@ -14,7 +14,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "benchmark"))
 
 import ortools_runner  # noqa: E402
 
-from sypha_tpu.io.scp_reader import parse_scp_text
+from sypha.io.scp_reader import parse_scp_text
 
 TINY = """\
 3 4

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from sypha_tpu import IpmStatus, pad_lp, read_scp_file, stack_lps
-from sypha_tpu.config import IpmOptions
-from sypha_tpu.parallel import make_mesh, shard_batch, solve_lp_batch_sharded
+from sypha import IpmStatus, pad_lp, read_scp_file, stack_lps
+from sypha.config import IpmOptions
+from sypha.parallel import make_mesh, shard_batch, solve_lp_batch_sharded
 
 
 def test_sharded_batch_solve(data_dir):
@@ -32,7 +32,7 @@ def test_sharded_batch_solve(data_dir):
 
 
 def test_sharded_matches_unsharded(data_dir):
-    from sypha_tpu import solve_lp_batch
+    from sypha import solve_lp_batch
 
     mesh = make_mesh(4)
     m = read_scp_file(str(data_dir / "scp_demo_tiny00.txt"))
@@ -53,11 +53,11 @@ def test_shared_batch_sharded(data_dir):
     import jax.numpy as jnp
     import numpy as np
 
-    from sypha_tpu import pad_lp, read_scp_file
-    from sypha_tpu.config import IpmOptions
-    from sypha_tpu.core.status import IpmStatus
-    from sypha_tpu.ipm.shared import fix_columns, make_shared_batch
-    from sypha_tpu.parallel import (
+    from sypha import pad_lp, read_scp_file
+    from sypha.config import IpmOptions
+    from sypha.core.status import IpmStatus
+    from sypha.ipm.shared import fix_columns, make_shared_batch
+    from sypha.parallel import (
         make_mesh,
         shard_shared_batch,
         solve_shared_batch_sharded,
@@ -86,7 +86,7 @@ def test_shared_batch_sharded(data_dir):
 
 
 def test_bound_pool_single_process():
-    from sypha_tpu.parallel.distributed import BoundPool, initialize_distributed
+    from sypha.parallel.distributed import BoundPool, initialize_distributed
 
     assert initialize_distributed() == 1
     pool = BoundPool()
@@ -100,11 +100,11 @@ def test_tensor_parallel_matches_single_chip(data_dir):
     import jax
     import numpy as np
 
-    from sypha_tpu import pad_lp, read_scp_file
-    from sypha_tpu.config import IpmOptions
-    from sypha_tpu.core.status import IpmStatus
-    from sypha_tpu.ipm.shared import make_shared_batch, mehrotra_solve_shared
-    from sypha_tpu.parallel.mesh import (
+    from sypha import pad_lp, read_scp_file
+    from sypha.config import IpmOptions
+    from sypha.core.status import IpmStatus
+    from sypha.ipm.shared import make_shared_batch, mehrotra_solve_shared
+    from sypha.parallel.mesh import (
         TP_AXIS,
         make_mesh,
         solve_shared_batch_tensor_parallel,
@@ -134,9 +134,9 @@ def test_bnb_mesh_scp41(data_dir):
     """End-to-end MILP B&B with node windows dispatched lane-sharded over
     the virtual 8-device mesh (VERDICT r1 item 1: the multi-chip machinery
     must be USED by the driver, not just demonstrated)."""
-    from sypha_tpu.config import SolverConfig
-    from sypha_tpu.core.status import MilpStatus
-    from sypha_tpu.milp.bnb import branch_and_bound
+    from sypha.config import SolverConfig
+    from sypha.core.status import MilpStatus
+    from sypha.milp.bnb import branch_and_bound
 
     model = read_scp_file(str(data_dir / "scp41.txt"))
     cfg = SolverConfig(verbosity=1)
@@ -156,11 +156,11 @@ def test_mesh_chunked_resume(data_dir):
 
     import numpy as np
 
-    from sypha_tpu.config import SolverConfig
-    from sypha_tpu.core.status import IpmStatus
-    from sypha_tpu.milp.base_model import BaseModel, BranchNode
-    from sypha_tpu.milp.bnb import _NodeLpSolver
-    from sypha_tpu.utils.logging import Logger
+    from sypha.config import SolverConfig
+    from sypha.core.status import IpmStatus
+    from sypha.milp.base_model import BaseModel, BranchNode
+    from sypha.milp.bnb import _NodeLpSolver
+    from sypha.utils.logging import Logger
 
     m = read_scp_file(str(data_dir / "scp41.txt"))
     base = BaseModel(m)
@@ -188,11 +188,11 @@ def test_tensor_parallel_sparse_matches_single_chip(data_dir):
     import jax
     import numpy as np
 
-    from sypha_tpu import read_scp_file
-    from sypha_tpu.config import IpmOptions
-    from sypha_tpu.core.status import IpmStatus
-    from sypha_tpu.ipm.shared import make_shared_batch_sparse, mehrotra_solve_shared
-    from sypha_tpu.parallel.mesh import (
+    from sypha import read_scp_file
+    from sypha.config import IpmOptions
+    from sypha.core.status import IpmStatus
+    from sypha.ipm.shared import make_shared_batch_sparse, mehrotra_solve_shared
+    from sypha.parallel.mesh import (
         TP_AXIS,
         make_mesh,
         solve_shared_batch_tensor_parallel,
@@ -224,11 +224,11 @@ def test_tensor_parallel_sparse_cg_strategy(data_dir):
     import jax
     import numpy as np
 
-    from sypha_tpu import read_scp_file
-    from sypha_tpu.config import IpmOptions
-    from sypha_tpu.core.status import IpmStatus
-    from sypha_tpu.ipm.shared import make_shared_batch_sparse, mehrotra_solve_shared
-    from sypha_tpu.parallel.mesh import (
+    from sypha import read_scp_file
+    from sypha.config import IpmOptions
+    from sypha.core.status import IpmStatus
+    from sypha.ipm.shared import make_shared_batch_sparse, mehrotra_solve_shared
+    from sypha.parallel.mesh import (
         TP_AXIS,
         make_mesh,
         solve_shared_batch_tensor_parallel,
@@ -274,11 +274,11 @@ def test_tensor_parallel_ell_scpnrg_scale(data_dir):
     import jax
     import numpy as np
 
-    from sypha_tpu import read_scp_file
-    from sypha_tpu.config import IpmOptions
-    from sypha_tpu.core.status import IpmStatus
-    from sypha_tpu.ipm.shared import make_shared_batch_sparse, mehrotra_solve_shared
-    from sypha_tpu.parallel.mesh import (
+    from sypha import read_scp_file
+    from sypha.config import IpmOptions
+    from sypha.core.status import IpmStatus
+    from sypha.ipm.shared import make_shared_batch_sparse, mehrotra_solve_shared
+    from sypha.parallel.mesh import (
         TP_AXIS,
         make_mesh,
         solve_shared_batch_tensor_parallel,
@@ -311,3 +311,18 @@ def test_tensor_parallel_ell_scpnrg_scale(data_dir):
     dobj_ref = np.einsum("bm,bm->b", np.asarray(batch.b), np.asarray(st_ref.y))
     dobj_tp = np.einsum("bm,bm->b", np.asarray(batch.b), np.asarray(st_tp.y))
     np.testing.assert_allclose(dobj_tp, dobj_ref, rtol=1e-8)
+
+
+def test_dryrun_multichip_four_devices():
+    """The multi-device path of the smoke script (`chip_smoke.py --gpus 4`)
+    on four virtual CPU devices: every leg converges and matches HiGHS, and
+    the mesh B&B on a generated scp4-shape instance branches and agrees
+    with HiGHS's MILP."""
+    from __graft_entry__ import dryrun_multichip
+
+    out = dryrun_multichip(4)
+    assert set(out) == {
+        "shared_window", "per_lane", "tensor_parallel",
+        "tensor_parallel_ell", "bnb",
+    }
+    assert out["bnb"][0] in ("OPTIMAL", "FEASIBLE")

@@ -5,9 +5,9 @@ import itertools
 import numpy as np
 import pytest
 
-from sypha_tpu import parse_scp_text, read_scp_file
-from sypha_tpu.milp.base_model import BaseModel
-from sypha_tpu.milp.presolve import (
+from sypha import parse_scp_text, read_scp_file
+from sypha.milp.base_model import BaseModel
+from sypha.milp.presolve import (
     _Deadline,
     apply_presolve_rules,
     greedy_set_cover,
@@ -74,7 +74,7 @@ def test_dominance_preserves_optimum():
         for i in range(nrows):
             k = rng.integers(2, 5)
             rows.append(np.sort(rng.choice(ncols, size=k, replace=False)).astype(np.int32))
-        from sypha_tpu.core.problem import ScpModel
+        from sypha.core.problem import ScpModel
 
         m = ScpModel(
             nrows=nrows,
@@ -104,7 +104,7 @@ def test_budget_pruning_preserves_better_solutions():
     for i in range(nrows):
         k = rng.integers(2, 4)
         rows.append(np.sort(rng.choice(ncols, size=k, replace=False)).astype(np.int32))
-    from sypha_tpu.core.problem import ScpModel
+    from sypha.core.problem import ScpModel
 
     m = ScpModel(
         nrows=nrows,
@@ -142,9 +142,9 @@ def test_exact_small_cover_vs_bruteforce():
     import itertools
     import numpy as np
 
-    from sypha_tpu.core.problem import ScpModel
-    from sypha_tpu.milp.base_model import BaseModel
-    from sypha_tpu.milp.presolve import exact_small_cover
+    from sypha.core.problem import ScpModel
+    from sypha.milp.base_model import BaseModel
+    from sypha.milp.presolve import exact_small_cover
 
     rng = np.random.default_rng(9)
     for trial in range(10):
@@ -167,7 +167,7 @@ def test_exact_small_cover_vs_bruteforce():
             for use_native in (True, False):
                 if not use_native:
                     # exercise the Python fallback DFS as well
-                    import sypha_tpu.native as native
+                    import sypha.native as native
                     orig = native.exact_cover
                     native.exact_cover = lambda *a, **k: None
                 try:
@@ -197,9 +197,9 @@ def test_exact_small_cover_dual_bound_admissible():
     import numpy as np
     from scipy.optimize import linprog
 
-    from sypha_tpu.core.problem import ScpModel
-    from sypha_tpu.milp.base_model import BaseModel
-    from sypha_tpu.milp.presolve import exact_small_cover
+    from sypha.core.problem import ScpModel
+    from sypha.milp.base_model import BaseModel
+    from sypha.milp.presolve import exact_small_cover
 
     rng = np.random.default_rng(31)
     for trial in range(6):
@@ -231,7 +231,7 @@ def test_exact_small_cover_dual_bound_admissible():
             for budget in (best - 1, best, best + 3):
                 for use_native in (True, False):
                     if not use_native:
-                        import sypha_tpu.native as native
+                        import sypha.native as native
                         orig = native.exact_cover
                         native.exact_cover = lambda *a, **k: None
                     try:
@@ -253,9 +253,9 @@ def test_sample_cover_finds_budgeted_cover():
     import numpy as np
     from scipy.optimize import linprog
 
-    from sypha_tpu import parse_scp_text
-    from sypha_tpu.milp.base_model import BaseModel
-    from sypha_tpu.milp.presolve import sample_cover
+    from sypha import parse_scp_text
+    from sypha.milp.base_model import BaseModel
+    from sypha.milp.presolve import sample_cover
 
     TINY = "3 4\n2 3 4 5\n2 1 2\n2 2 3\n3 1 3 4\n"
     base = BaseModel(parse_scp_text(TINY))
@@ -276,10 +276,10 @@ def test_exact_cover_with_cut_lagrangian():
     exist at a budget."""
     import numpy as np
 
-    from sypha_tpu.io.scp_reader import parse_scp_text
-    from sypha_tpu.milp.base_model import BaseModel
-    from sypha_tpu.milp.presolve import exact_small_cover
-    from sypha_tpu import native
+    from sypha.io.scp_reader import parse_scp_text
+    from sypha.milp.base_model import BaseModel
+    from sypha.milp.presolve import exact_small_cover
+    from sypha import native
 
     if native.get_lib() is None or not hasattr(
         native.get_lib(), "sypha_exact_cover_cuts"

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from sypha_tpu import parse_scp_text, read_scp_file, scp_standard_form, pad_lp
+from sypha import parse_scp_text, read_scp_file, scp_standard_form, pad_lp
 
 
 TINY = """3 4

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sypha_tpu.ops.spd import spd_factor, spd_solve
+from sypha.ops.spd import spd_factor, spd_solve
 
 
 def _ipm_like_system(rng, B, m, n, spread):

@@ -4,8 +4,8 @@ phase timers)."""
 import io
 import time
 
-from sypha_tpu.utils.logging import Logger
-from sypha_tpu.utils.timers import PhaseTimers
+from sypha.utils.logging import Logger
+from sypha.utils.timers import PhaseTimers
 
 
 def test_logger_levels_and_format():
@@ -43,7 +43,7 @@ def test_phase_timers():
 
 
 def test_request_stop_flag():
-    from sypha_tpu.utils.logging import Logger
+    from sypha.utils.logging import Logger
 
     log = Logger(verbosity=0)
     assert not log.is_stop_requested()
